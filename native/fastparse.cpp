@@ -1,9 +1,9 @@
-// fastparse — native data-loader for the TPU profile-HMM scan engine.
+// fastparse — native data-loader for the profile-HMM scan engine.
 //
 // C ABI (ctypes-consumed) parsers for HMMER3/b ".hmm" profiles and
 // protein FASTA databases, producing the dense arrays the JAX device
 // paths consume. Semantics mirror the engine's Python reference parsers
-// (hmm_fasta_viterbi_tpu/io/{hmmio,fastaio}.py), which in turn preserve
+// (hmm_fasta_viterbi/io/{hmmio,fastaio}.py), which in turn preserve
 // the numeric conventions of the original C++ readers
 // (reference data_readers/Profile_HMM.cpp: prob = expf(-strtof(tok)),
 // model_length = LENG+1 dummy M0, '*' parsing as strtof 0.0 -> prob 1;
@@ -425,8 +425,7 @@ void fp_free_fasta(FpFasta* f) {
 // batch); rejections are counted against the batch in which they were
 // read. The engine's streaming scan path uses this to keep host memory
 // at one batch for genome-scale databases while the device scans at
-// kernel rate (the Python line loop parses ~10x slower than the chips
-// consume at M>=1400).
+// kernel rate.
 
 struct FpFastaStream {
   FILE* f = nullptr;

@@ -16,11 +16,11 @@ import json
 import numpy as np
 import pytest
 
-from hmm_fasta_viterbi_tpu.cli import main
-from hmm_fasta_viterbi_tpu.io.hmmio import parse_hmm
-from hmm_fasta_viterbi_tpu.io.hmmwrite import write_hmm
-from hmm_fasta_viterbi_tpu.io.msaio import read_msa
-from hmm_fasta_viterbi_tpu.models.build import build_profile, calibrate_profile
+from hmm_fasta_viterbi.cli import main
+from hmm_fasta_viterbi.io.hmmio import parse_hmm
+from hmm_fasta_viterbi.io.hmmwrite import write_hmm
+from hmm_fasta_viterbi.io.msaio import read_msa
+from hmm_fasta_viterbi.models.build import build_profile, calibrate_profile
 
 
 def test_writer_roundtrips_real_profile(profile_dir, tmp_path):
@@ -30,7 +30,7 @@ def test_writer_roundtrips_real_profile(profile_dir, tmp_path):
     out = tmp_path / "rt.hmm"
     write_hmm(src, out)
     for prefer in ("python", "native"):
-        from hmm_fasta_viterbi_tpu.io.loader import load_profile
+        from hmm_fasta_viterbi.io.loader import load_profile
 
         try:
             rt = load_profile(out, prefer=prefer)
@@ -105,7 +105,7 @@ def test_emit_align_build_scan_loop(profile_dir, tmp_path, capsys):
                     + "".join(aas[k] for k in rng.integers(0, 20, 100))
                     + "\n")
     assert main(["scan", "--hmm", str(built), "--fasta", str(samples),
-                 "--backend", "xla", "--stage", "search",
+                 "--msv-impl", "xla", "--stage", "search",
                  "--format", "json"]) == 0
     rows_out = json.loads(capsys.readouterr().out)
     hits = {r["target"] for r in rows_out if r["hit"]}
@@ -149,7 +149,7 @@ def test_writer_keeps_structural_stars(profile_dir, tmp_path):
 
 
 def test_msaio_rejects_malformed(tmp_path):
-    from hmm_fasta_viterbi_tpu.io.msaio import MSAParseError
+    from hmm_fasta_viterbi.io.msaio import MSAParseError
 
     bad = tmp_path / "bad.sto"
     bad.write_text("# STOCKHOLM 1.0\n#=GC RF\nrow1 ACD\n//\n")

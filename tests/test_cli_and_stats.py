@@ -5,9 +5,9 @@ import json
 import numpy as np
 import pytest
 
-from hmm_fasta_viterbi_tpu import parse_hmm
-from hmm_fasta_viterbi_tpu.cli import main
-from hmm_fasta_viterbi_tpu.models import stats
+from hmm_fasta_viterbi import parse_hmm
+from hmm_fasta_viterbi.cli import main
+from hmm_fasta_viterbi.models import stats
 
 
 def test_gumbel_pvalue_properties():
@@ -121,8 +121,8 @@ def test_pvalue_calibration_sanity(profile_dir):
     """End-to-end statistical sanity: MSV P-values of random sequences
     against a HMMER-calibrated profile must behave like (sub-)uniform
     tail probabilities — not systematically significant."""
-    from hmm_fasta_viterbi_tpu import MSVProfile, parse_hmm
-    from hmm_fasta_viterbi_tpu.ops.xla_scan import msv_xla
+    from hmm_fasta_viterbi import MSVProfile, parse_hmm
+    from hmm_fasta_viterbi.ops.xla_scan import msv_xla
 
     hmm = parse_hmm(profile_dir / "100.hmm")
     profile = MSVProfile.from_profile(hmm)
@@ -166,22 +166,22 @@ def test_cli_sweep_json_out_is_valid_json(tmp_path, profile_dir, fasta_dir):
 
 def test_cli_mesh_scan(profile_dir, fasta_dir, capsys):
     """--mesh shards the scan over the virtual 8-device CPU mesh through
-    the CLI (VERDICT r1 #3); scores must match the meshless run."""
+    the CLI; scores must match the meshless run."""
     args = [
         "scan", "--hmm", str(profile_dir / "100.hmm"),
         "--fasta", str(fasta_dir / "fasta_like_example.fsa"),
         "--format", "json",
     ]
-    assert main(args + ["--mesh", "db=8", "--backend", "pallas"]) == 0
+    assert main(args + ["--mesh", "db=8", "--msv-impl", "xla"]) == 0
     mesh_rows = json.loads(capsys.readouterr().out)
-    assert main(args + ["--backend", "xla"]) == 0
+    assert main(args + ["--msv-impl", "xla"]) == 0
     plain_rows = json.loads(capsys.readouterr().out)
     assert len(mesh_rows) == len(plain_rows) == 4
     by_target = {r["target"]: r["score_nats"] for r in plain_rows}
     for r in mesh_rows:
         assert r["score_nats"] == pytest.approx(by_target[r["target"]], abs=1e-4)
     # streaming composes with the db mesh: each batch stages sharded
-    assert main(args + ["--mesh", "db=2", "--backend", "pallas",
+    assert main(args + ["--mesh", "db=2", "--msv-impl", "xla",
                         "--stream", "2"]) == 0
     streamed = json.loads(capsys.readouterr().out)
     assert len(streamed) == 4
@@ -203,7 +203,7 @@ def test_cli_sweep_checkpoint_resume(profile_dir, fasta_dir, tmp_path, capsys):
     args = [
         "sweep", "--hmm-dir", str(hmm_dir),
         "--fasta", str(fasta_dir / "fasta_like_example.fsa"),
-        "--backend", "xla", "--format", "json",
+        "--msv-impl", "xla", "--format", "json",
         "--checkpoint", str(ckpt), "--checkpoint-shard", "2",
     ]
     assert main(args) == 0
@@ -222,16 +222,16 @@ def test_cli_sweep_checkpoint_resume(profile_dir, fasta_dir, tmp_path, capsys):
 
 def test_cli_mesh_sp_wavefront(profile_dir, fasta_dir, capsys):
     """--mesh db=2,sp=4 routes the scan through the sequence-block
-    wavefront (residue blocks across chips); scores match the plain
+    wavefront (residue blocks across devices); scores match the plain
     run."""
     args = [
         "scan", "--hmm", str(profile_dir / "100.hmm"),
         "--fasta", str(fasta_dir / "fasta_like_example.fsa"),
         "--format", "json",
     ]
-    assert main(args + ["--mesh", "db=2,sp=4", "--backend", "pallas"]) == 0
+    assert main(args + ["--mesh", "db=2,sp=4", "--msv-impl", "xla"]) == 0
     sp_rows = json.loads(capsys.readouterr().out)
-    assert main(args + ["--backend", "xla"]) == 0
+    assert main(args + ["--msv-impl", "xla"]) == 0
     plain_rows = json.loads(capsys.readouterr().out)
     by_target = {r["target"]: r["score_nats"] for r in plain_rows}
     assert len(sp_rows) == 4
@@ -239,40 +239,21 @@ def test_cli_mesh_sp_wavefront(profile_dir, fasta_dir, capsys):
         assert r["score_nats"] == pytest.approx(by_target[r["target"]], abs=1e-4)
 
 
-def test_cli_mesh_sp_search_cascade(tmp_path, profile_dir, fasta_dir, capsys):
-    """Round 3: --stage search composes with --mesh sp>1 (every cascade
-    stage wavefronted); results match the plain single-device search.
-    Loose --config thresholds keep survivors at every stage."""
-    from conftest import consensus_tokens
-    from hmm_fasta_viterbi_tpu.io.alphabet import decode_sequence
-
-    hmm_for_hit = __import__("hmm_fasta_viterbi_tpu").parse_hmm(
-        profile_dir / "100.hmm"
-    )
-    rng = np.random.default_rng(11)
-    fasta = tmp_path / "db.fsa"
-    seqs = [decode_sequence(consensus_tokens(hmm_for_hit))] + [
-        decode_sequence(rng.integers(0, 20, size=160)) for _ in range(5)
-    ]
-    fasta.write_text(
-        "".join(f">seq{i}\n{s}\n" for i, s in enumerate(seqs))
-    )
-    args = [
-        "scan", "--hmm", str(profile_dir / "100.hmm"),
-        "--fasta", str(fasta),
-        "--stage", "search", "--format", "json",
-    ]
-    assert main(args + ["--mesh", "db=2,sp=4", "--backend", "pallas"]) == 0
-    sp_rows = json.loads(capsys.readouterr().out)
-    assert main(args + ["--backend", "xla"]) == 0
-    plain_rows = json.loads(capsys.readouterr().out)
-    by_target = {r["target"]: r for r in plain_rows}
-    assert len(sp_rows) == len(plain_rows) > 0
-    assert any(r["hit"] for r in sp_rows)  # the consensus hit survives
-    for r in sp_rows:
-        want = by_target[r["target"]]
-        assert r["msv_bits"] == pytest.approx(want["msv_bits"], abs=1e-3)
-        assert r["hit"] == want["hit"]
+@pytest.mark.parametrize(
+    "cmd,stage",
+    [("scan", "viterbi"), ("scan", "forward"), ("scan", "search"),
+     ("sweep", "search")],
+)
+def test_cli_mesh_sp_refuses_p7_stages(profile_dir, fasta_dir, caplog, cmd, stage):
+    """--mesh sp>1 serves the MSV stage only: the Viterbi / Forward
+    stages (and the cascade that needs them) are refused with an error
+    naming the missing wavefront, not scored another way."""
+    where = (["--hmm", str(profile_dir / "100.hmm")] if cmd == "scan"
+             else ["--hmm-dir", str(profile_dir)])
+    rc = main([cmd, *where, "--fasta", str(fasta_dir / "fasta_like_example.fsa"),
+               "--stage", stage, "--mesh", "db=2,sp=4"])
+    assert rc == 2
+    assert "wavefront" in caplog.text
 
 
 def test_cli_mesh_sp_sweep(profile_dir, fasta_dir, capsys):
@@ -291,9 +272,9 @@ def test_cli_mesh_sp_sweep(profile_dir, fasta_dir, capsys):
             "--fasta", str(fasta_dir / "fasta_like_example.fsa"),
             "--format", "json",
         ]
-        assert main(args + ["--mesh", "db=2,sp=4", "--backend", "pallas"]) == 0
+        assert main(args + ["--mesh", "db=2,sp=4", "--msv-impl", "xla"]) == 0
         sp_rows = json.loads(capsys.readouterr().out)
-        assert main(args + ["--backend", "xla"]) == 0
+        assert main(args + ["--msv-impl", "xla"]) == 0
         plain_rows = json.loads(capsys.readouterr().out)
     key = lambda r: (r["target"], r["profile"])
     by_key = {key(r): r["score_nats"] for r in plain_rows}
@@ -306,9 +287,9 @@ def test_cli_search_align(tmp_path, profile_dir, capsys):
     """--align reports per-domain Viterbi alignments for hits (round 3:
     host-side traceback, ops.traceback) in both JSON and text formats."""
     from conftest import consensus_tokens
-    from hmm_fasta_viterbi_tpu.io.alphabet import decode_sequence
+    from hmm_fasta_viterbi.io.alphabet import decode_sequence
 
-    hmm = __import__("hmm_fasta_viterbi_tpu").parse_hmm(
+    hmm = __import__("hmm_fasta_viterbi").parse_hmm(
         profile_dir / "100.hmm"
     )
     rng = np.random.default_rng(5)
@@ -321,7 +302,7 @@ def test_cli_search_align(tmp_path, profile_dir, capsys):
     args = [
         "scan", "--hmm", str(profile_dir / "100.hmm"),
         "--fasta", str(fasta), "--stage", "search",
-        "--backend", "xla", "--align",
+        "--msv-impl", "xla", "--align",
     ]
     assert main(args + ["--format", "json"]) == 0
     rows = json.loads(capsys.readouterr().out)
@@ -356,10 +337,10 @@ def test_cli_search_align(tmp_path, profile_dir, capsys):
 def test_cli_align_subcommand(tmp_path, profile_dir, capsys):
     """`align` (hmmalign-shaped): Viterbi-aligns every sequence, no
     thresholds; consensus aligns as identities over the full model."""
-    from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
-    from hmm_fasta_viterbi_tpu.ops.traceback import consensus_string
+    from hmm_fasta_viterbi.models.p7 import P7Profile
+    from hmm_fasta_viterbi.ops.traceback import consensus_string
 
-    hmm = __import__("hmm_fasta_viterbi_tpu").parse_hmm(
+    hmm = __import__("hmm_fasta_viterbi").parse_hmm(
         profile_dir / "100.hmm"
     )
     cons = consensus_string(P7Profile.from_profile(hmm))
@@ -402,7 +383,7 @@ def test_cli_scan_stream_matches_whole(tmp_path, profile_dir, capsys):
         )
     )
     args = ["scan", "--hmm", str(profile_dir / "100.hmm"),
-            "--fasta", str(fasta), "--backend", "xla", "--format", "json"]
+            "--fasta", str(fasta), "--msv-impl", "xla", "--format", "json"]
     assert main(args) == 0
     whole = {r["target"]: r for r in json.loads(capsys.readouterr().out)}
     assert main(args + ["--stream", "3"]) == 0
@@ -428,7 +409,7 @@ def test_cli_scan_stream_p7_stages(tmp_path, profile_dir, capsys):
     )
     for stage in ("viterbi", "forward"):
         args = ["scan", "--hmm", str(profile_dir / "100.hmm"),
-                "--fasta", str(fasta), "--backend", "xla",
+                "--fasta", str(fasta), "--msv-impl", "xla",
                 "--stage", stage, "--format", "json"]
         assert main(args) == 0
         whole = {r["target"]: r for r in json.loads(capsys.readouterr().out)}
@@ -447,10 +428,10 @@ def test_cli_search_stream_matches_whole(tmp_path, profile_dir, capsys):
     """--stream with --stage search: per-batch compaction to MSV
     survivors reproduces the whole-file cascade report — same row set,
     scores, and domain envelopes — with hits split across batches."""
-    from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
-    from hmm_fasta_viterbi_tpu.ops.traceback import consensus_string
+    from hmm_fasta_viterbi.models.p7 import P7Profile
+    from hmm_fasta_viterbi.ops.traceback import consensus_string
 
-    hmm = __import__("hmm_fasta_viterbi_tpu").parse_hmm(
+    hmm = __import__("hmm_fasta_viterbi").parse_hmm(
         profile_dir / "100.hmm"
     )
     cons = consensus_string(P7Profile.from_profile(hmm))
@@ -465,7 +446,7 @@ def test_cli_search_stream_matches_whole(tmp_path, profile_dir, capsys):
     fasta = tmp_path / "db.fsa"
     fasta.write_text("\n".join(recs) + "\n")
     args = ["scan", "--hmm", str(profile_dir / "100.hmm"),
-            "--fasta", str(fasta), "--backend", "xla", "--stage", "search",
+            "--fasta", str(fasta), "--msv-impl", "xla", "--stage", "search",
             "--format", "json", "--domains"]
     assert main(args) == 0
     whole = {r["target"]: r for r in json.loads(capsys.readouterr().out)}
@@ -491,10 +472,10 @@ def test_cli_search_evalue_top_cutoff(tmp_path, profile_dir, capsys):
     """Search reports carry E-values = forward_p x TRUE database size
     (streamed searches use the total scanned, not the survivor count);
     --top and --max-evalue filter the report rows."""
-    from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
-    from hmm_fasta_viterbi_tpu.ops.traceback import consensus_string
+    from hmm_fasta_viterbi.models.p7 import P7Profile
+    from hmm_fasta_viterbi.ops.traceback import consensus_string
 
-    hmm = __import__("hmm_fasta_viterbi_tpu").parse_hmm(
+    hmm = __import__("hmm_fasta_viterbi").parse_hmm(
         profile_dir / "100.hmm"
     )
     cons = consensus_string(P7Profile.from_profile(hmm))
@@ -508,7 +489,7 @@ def test_cli_search_evalue_top_cutoff(tmp_path, profile_dir, capsys):
     fasta = tmp_path / "db.fsa"
     fasta.write_text("\n".join(recs) + "\n")
     args = ["scan", "--hmm", str(profile_dir / "100.hmm"),
-            "--fasta", str(fasta), "--backend", "xla", "--stage", "search",
+            "--fasta", str(fasta), "--msv-impl", "xla", "--stage", "search",
             "--format", "json"]
     assert main(args) == 0
     whole = json.loads(capsys.readouterr().out)
@@ -537,10 +518,10 @@ def test_cli_search_json_is_strict(tmp_path, profile_dir, capsys):
     """MSV survivors that never reached Viterbi/Forward have NaN p/E
     values; the JSON report must emit null for them (bare NaN is invalid
     JSON for strict parsers — ADVICE r3)."""
-    from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
-    from hmm_fasta_viterbi_tpu.ops.traceback import consensus_string
+    from hmm_fasta_viterbi.models.p7 import P7Profile
+    from hmm_fasta_viterbi.ops.traceback import consensus_string
 
-    hmm = __import__("hmm_fasta_viterbi_tpu").parse_hmm(profile_dir / "100.hmm")
+    hmm = __import__("hmm_fasta_viterbi").parse_hmm(profile_dir / "100.hmm")
     cons = consensus_string(P7Profile.from_profile(hmm))
     rng = np.random.default_rng(7)
     aas = "ACDEFGHIKLMNPQRSTVWY"
@@ -557,7 +538,7 @@ def test_cli_search_json_is_strict(tmp_path, profile_dir, capsys):
     cfg.write_text(json.dumps({"msv_p": 1.0}))
     base = [
         "scan", "--hmm", str(profile_dir / "100.hmm"), "--fasta", str(fasta),
-        "--backend", "xla", "--stage", "search", "--config", str(cfg),
+        "--msv-impl", "xla", "--stage", "search", "--config", str(cfg),
     ]
     assert main(base + ["--format", "json"]) == 0
     raw = capsys.readouterr().out
@@ -580,10 +561,10 @@ def test_cli_search_json_is_strict(tmp_path, profile_dir, capsys):
 
 def test_cli_align_stream_matches_whole(tmp_path, profile_dir, capsys):
     """align --stream: identical output to the whole-file align."""
-    from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
-    from hmm_fasta_viterbi_tpu.ops.traceback import consensus_string
+    from hmm_fasta_viterbi.models.p7 import P7Profile
+    from hmm_fasta_viterbi.ops.traceback import consensus_string
 
-    hmm = __import__("hmm_fasta_viterbi_tpu").parse_hmm(
+    hmm = __import__("hmm_fasta_viterbi").parse_hmm(
         profile_dir / "100.hmm"
     )
     cons = consensus_string(P7Profile.from_profile(hmm))
@@ -603,7 +584,7 @@ def test_cli_info(profile_dir, capsys):
     """`info` (hmmstat-shaped): parsed NAME/LENG/STATS per profile,
     matching the parser's golden fields; --consensus adds the model
     consensus string."""
-    hv = __import__("hmm_fasta_viterbi_tpu")
+    hv = __import__("hmm_fasta_viterbi")
     hmm = hv.parse_hmm(profile_dir / "100.hmm")
     assert main(["info", "--hmm", str(profile_dir / "100.hmm"),
                  "--format", "json", "--consensus"]) == 0
@@ -640,7 +621,7 @@ def test_cli_sweep_stream_matches_whole(tmp_path, profile_dir, fasta_dir,
     fasta = str(fasta_dir / "fasta_like_example.fsa")
     for stage in ("msv", "search"):
         args = ["sweep", "--hmm-dir", str(hmm_dir), "--fasta", fasta,
-                "--backend", "xla", "--stage", stage, "--format", "json"]
+                "--msv-impl", "xla", "--stage", stage, "--format", "json"]
         assert main(args) == 0
         whole = json.loads(capsys.readouterr().out)
         assert main(args + ["--stream", "2"]) == 0
@@ -659,11 +640,11 @@ def test_cli_align_survives_overbudget_sequence(tmp_path, profile_dir,
                                                 capsys, monkeypatch):
     """One over-budget sequence (traceback DP MemoryError) must not
     discard the align run's output (round-3 review)."""
-    from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
-    from hmm_fasta_viterbi_tpu.ops import traceback as tb
-    from hmm_fasta_viterbi_tpu.ops.traceback import consensus_string
+    from hmm_fasta_viterbi.models.p7 import P7Profile
+    from hmm_fasta_viterbi.ops import traceback as tb
+    from hmm_fasta_viterbi.ops.traceback import consensus_string
 
-    hmm = __import__("hmm_fasta_viterbi_tpu").parse_hmm(
+    hmm = __import__("hmm_fasta_viterbi").parse_hmm(
         profile_dir / "100.hmm"
     )
     cons = consensus_string(P7Profile.from_profile(hmm))
@@ -676,7 +657,7 @@ def test_cli_align_survives_overbudget_sequence(tmp_path, profile_dir,
             raise MemoryError("traceback DP over budget")
         return real(p7, tokens, **kw)
 
-    monkeypatch.setattr("hmm_fasta_viterbi_tpu.ops.traceback.domain_alignments", fake)
+    monkeypatch.setattr("hmm_fasta_viterbi.ops.traceback.domain_alignments", fake)
     assert main(["align", "--hmm", str(profile_dir / "100.hmm"),
                  "--fasta", str(fasta), "--format", "json"]) == 0
     rows = json.loads(capsys.readouterr().out)
@@ -701,7 +682,7 @@ def test_cli_sweep_hmm_db(tmp_path, profile_dir, fasta_dir, capsys):
     for stem in ("100", "200"):
         shutil.copy(profile_dir / f"{stem}.hmm", hmm_dir)
     fasta = str(fasta_dir / "fasta_like_example.fsa")
-    common = ["--fasta", fasta, "--backend", "xla", "--format", "json"]
+    common = ["--fasta", fasta, "--msv-impl", "xla", "--format", "json"]
     assert main(["sweep", "--hmm-dir", str(hmm_dir)] + common) == 0
     from_dir = json.loads(capsys.readouterr().out)
     assert main(["sweep", "--hmm-db", str(db)] + common) == 0

@@ -9,8 +9,8 @@ reference left undefined (SURVEY.md quirks 5/6).
 import numpy as np
 import pytest
 
-from hmm_fasta_viterbi_tpu import parse_fasta, parse_fasta_text
-from hmm_fasta_viterbi_tpu.io.fastaio import FastaParseError, FastaRecord, write_fasta
+from hmm_fasta_viterbi import parse_fasta, parse_fasta_text
+from hmm_fasta_viterbi.io.fastaio import FastaParseError, FastaRecord, write_fasta
 
 
 def test_example_fasta_golden(fasta_dir):
@@ -85,7 +85,7 @@ def test_iter_fasta_batches_matches_whole_file(tmp_path):
     do and do not divide the record count."""
     import numpy as np
 
-    from hmm_fasta_viterbi_tpu.io.fastaio import (
+    from hmm_fasta_viterbi.io.fastaio import (
         iter_fasta_batches,
         parse_fasta,
     )
@@ -117,7 +117,7 @@ def test_iter_fasta_batches_matches_whole_file(tmp_path):
 
 
 def test_iter_fasta_batches_data_before_header(tmp_path):
-    from hmm_fasta_viterbi_tpu.io.fastaio import (
+    from hmm_fasta_viterbi.io.fastaio import (
         FastaParseError,
         iter_fasta_batches,
     )

@@ -10,7 +10,7 @@ import math
 import numpy as np
 import pytest
 
-from hmm_fasta_viterbi_tpu import HMMParseError, parse_hmm, parse_hmm_text
+from hmm_fasta_viterbi import HMMParseError, parse_hmm, parse_hmm_text
 
 
 def neg_ln_to_prob(x: float) -> float:
@@ -157,7 +157,7 @@ def test_parse_hmm_multi_concatenated(profile_dir, tmp_path):
     individual files; single-model files give a one-element list."""
     import numpy as np
 
-    from hmm_fasta_viterbi_tpu.io.hmmio import (
+    from hmm_fasta_viterbi.io.hmmio import (
         HMMParseError,
         parse_hmm,
         parse_hmm_multi,

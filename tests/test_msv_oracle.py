@@ -17,9 +17,9 @@ import math
 import numpy as np
 import pytest
 
-from hmm_fasta_viterbi_tpu import MSVProfile, msv_oracle, parse_hmm, parse_hmm_text
-from hmm_fasta_viterbi_tpu.io.alphabet import BACKGROUND_FREQUENCIES, encode_sequence
-from hmm_fasta_viterbi_tpu.models.msv import length_transitions
+from hmm_fasta_viterbi import MSVProfile, msv_oracle, parse_hmm, parse_hmm_text
+from hmm_fasta_viterbi.io.alphabet import BACKGROUND_FREQUENCIES, encode_sequence
+from hmm_fasta_viterbi.models.msv import length_transitions
 
 from test_hmm_parsing import MINI_HMM
 

@@ -8,8 +8,8 @@ within abs 1e-4 across implementations.
 import numpy as np
 import pytest
 
-from hmm_fasta_viterbi_tpu import MSVProfile, msv_oracle_batch, parse_fasta, parse_hmm
-from hmm_fasta_viterbi_tpu.ops.xla_scan import msv_xla
+from hmm_fasta_viterbi import MSVProfile, msv_oracle_batch, parse_fasta, parse_hmm
+from hmm_fasta_viterbi.ops.xla_scan import msv_xla
 
 TOL = 1e-4  # the reference's own cross-implementation tolerance
 

@@ -7,8 +7,8 @@ parsers remain the semantic oracle.
 import numpy as np
 import pytest
 
-from hmm_fasta_viterbi_tpu import parse_fasta, parse_hmm
-from hmm_fasta_viterbi_tpu.io import loader, native
+from hmm_fasta_viterbi import parse_fasta, parse_hmm
+from hmm_fasta_viterbi.io import loader, native
 
 pytestmark = pytest.mark.skipif(
     not native.native_available(), reason="native fastparse not available"
@@ -72,7 +72,7 @@ def test_fasta_interior_whitespace_matches_python(tmp_path):
     parser (line.strip() keeps them; they are invalid symbols) — the
     native batch AND streaming readers must agree on record counts
     (ADVICE r3: they used to silently skip blanks and accept)."""
-    from hmm_fasta_viterbi_tpu.io.fastaio import parse_fasta
+    from hmm_fasta_viterbi.io.fastaio import parse_fasta
 
     f = tmp_path / "blanks.fsa"
     # rec1: interior space -> reject; rec2: leading/trailing blanks only
@@ -105,7 +105,7 @@ def test_stream_batches_match_python(tmp_path, fasta_dir):
     """Native streaming reader == Python iter_fasta_batches: batch cuts,
     headers, encoded tokens, rejection counting — across divisor and
     non-divisor batch sizes, wrapped lines, and a rejected record."""
-    from hmm_fasta_viterbi_tpu.io.fastaio import iter_fasta_batches
+    from hmm_fasta_viterbi.io.fastaio import iter_fasta_batches
 
     rng = np.random.default_rng(11)
     aas = "ACDEFGHIKLMNPQRSTVWY"
@@ -185,10 +185,10 @@ def test_stream_fasta_prefetch_staged_int8(fasta_dir):
     kernel layout — the int32 detour was 4x the producer-thread memory
     traffic); values must equal the int32 path's exactly, and the
     staged object must round-trip through the real scanner.stage."""
-    from hmm_fasta_viterbi_tpu.pipeline import MSVScanner
+    from hmm_fasta_viterbi.pipeline import MSVScanner
 
     path = fasta_dir / "fasta_like_example.fsa"
-    sc = MSVScanner(backend="pallas", interpret=True)
+    sc = MSVScanner(msv_impl="xla")
     for prefer in ("native", "python"):
         plain = list(loader.stream_fasta_prefetch(
             path, 2, prefer=prefer, encode_pad_multiple=8
@@ -211,7 +211,7 @@ def test_stream_fasta_prefetch_staged_int8(fasta_dir):
             sub8 = sc.stage(tok[:1], lens[:1])
             sub32 = sc.stage(tok32[:1], lens32[:1])
             np.testing.assert_array_equal(
-                np.asarray(sub8.tokens_i8_t), np.asarray(sub32.tokens_i8_t)
+                np.asarray(sub8.tokens_i8), np.asarray(sub32.tokens_i8)
             )
 
 
@@ -231,7 +231,7 @@ def test_native_stale_abi_rebuilds(tmp_path, monkeypatch):
     import shutil
     import subprocess
 
-    from hmm_fasta_viterbi_tpu.io import native
+    from hmm_fasta_viterbi.io import native
 
     try:
         native._load()
@@ -267,20 +267,20 @@ def test_native_stream_warns_on_rejects(tmp_path, caplog):
     drop them (round-3 review)."""
     import logging
 
-    from hmm_fasta_viterbi_tpu.io import native
+    from hmm_fasta_viterbi.io import native
 
     if not native.native_available():
         pytest.skip("native library unavailable")
     f = tmp_path / "rej.fsa"
     f.write_text(">ok\nACDEF\n>bad\nACDZF\n>ok2\nGHIKL\n")
-    with caplog.at_level(logging.WARNING, logger="hmm_fasta_viterbi_tpu.io.native"):
+    with caplog.at_level(logging.WARNING, logger="hmm_fasta_viterbi.io.native"):
         batches = list(native.iter_fasta_batches_native(f, 10))
     assert sum(len(b) for b in batches) == 2
     assert sum(b.num_rejected for b in batches) == 1
     assert any("rejected 1" in r.message for r in caplog.records)
     # whole-file native parse warns too
     caplog.clear()
-    with caplog.at_level(logging.WARNING, logger="hmm_fasta_viterbi_tpu.io.native"):
+    with caplog.at_level(logging.WARNING, logger="hmm_fasta_viterbi.io.native"):
         db = native.parse_fasta_native(f)
     assert len(db) == 2
     assert any("rejected 1" in r.message for r in caplog.records)
@@ -290,8 +290,8 @@ def test_native_multi_hmm_matches_python(tmp_path, profile_dir):
     """fp_parse_hmm_buf over a concatenated database == the Python
     parse_hmm_multi, model for model, over all 24 fixtures (incl. the
     no-trailing-newline '//HMMER3/b' concatenation seam)."""
-    from hmm_fasta_viterbi_tpu.io import native
-    from hmm_fasta_viterbi_tpu.io.hmmio import parse_hmm_multi
+    from hmm_fasta_viterbi.io import native
+    from hmm_fasta_viterbi.io.hmmio import parse_hmm_multi
 
     if not native.native_available():
         pytest.skip("native library unavailable")

@@ -11,12 +11,12 @@ import math
 import numpy as np
 import pytest
 
-from hmm_fasta_viterbi_tpu import parse_hmm, parse_hmm_text
-from hmm_fasta_viterbi_tpu.io.alphabet import encode_sequence
-from hmm_fasta_viterbi_tpu.models.msv import length_transitions
-from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
-from hmm_fasta_viterbi_tpu.ops.p7_scan import forward_xla, viterbi_xla
-from hmm_fasta_viterbi_tpu.ops.reference import (
+from hmm_fasta_viterbi import parse_hmm, parse_hmm_text
+from hmm_fasta_viterbi.io.alphabet import encode_sequence
+from hmm_fasta_viterbi.models.msv import length_transitions
+from hmm_fasta_viterbi.models.p7 import P7Profile
+from hmm_fasta_viterbi.ops.p7_scan import forward_xla, viterbi_xla
+from hmm_fasta_viterbi.ops.reference import (
     forward_oracle_batch,
     viterbi_oracle,
     viterbi_oracle_batch,

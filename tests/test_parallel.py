@@ -12,10 +12,10 @@ import jax
 import numpy as np
 import pytest
 
-from hmm_fasta_viterbi_tpu import MSVProfile, msv_oracle_batch, parse_hmm
-from hmm_fasta_viterbi_tpu.parallel.database import msv_scan_sharded, top_k_hits
-from hmm_fasta_viterbi_tpu.parallel.mesh import make_scan_mesh
-from hmm_fasta_viterbi_tpu.parallel.seqblocks import msv_scan_seqblocks
+from hmm_fasta_viterbi import MSVProfile, msv_oracle_batch, parse_hmm
+from hmm_fasta_viterbi.parallel.database import msv_scan_sharded, top_k_hits
+from hmm_fasta_viterbi.parallel.mesh import make_scan_mesh
+from hmm_fasta_viterbi.parallel.seqblocks import msv_scan_seqblocks
 
 TOL = 1e-4
 
@@ -46,7 +46,7 @@ def test_database_sharded_scan(profile, batch):
 
 
 def test_seqblock_wavefront(profile, batch):
-    """Residue blocks across 4 chips x db across 2: boundary-carry parity."""
+    """Residue blocks across 4 devices x db across 2: boundary-carry parity."""
     tokens, lengths = batch
     mesh = make_scan_mesh(db=2, sp=4)
     got = msv_scan_seqblocks(profile, tokens, lengths, mesh)
@@ -64,7 +64,7 @@ def test_seqblock_pure_sp(profile, batch):
 
 
 def test_seqblock_long_sequence(profile):
-    """One 4096-residue sequence split across 8 chips."""
+    """One 4096-residue sequence split across 8 devices."""
     rng = np.random.default_rng(11)
     tokens = rng.integers(0, 20, size=(1, 4096)).astype(np.int32)
     lengths = np.array([4096], dtype=np.int32)
@@ -106,61 +106,49 @@ def test_seqblock_group_sizes(profile, batch):
         np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
 
 
-def test_sharded_pallas_db_scan(profile, batch):
-    """shard_map'd Pallas kernel over the db axis (interpret on CPU)."""
-    import jax.numpy as jnp
-
-    from hmm_fasta_viterbi_tpu.parallel.database import make_db_scanner
-    from hmm_fasta_viterbi_tpu.pipeline import MSVScanner
+def test_sharded_db_scan(profile, batch):
+    """shard_map'd MSV scan (the XLA implementation per device) over the
+    db axis, on the staged layout."""
+    from hmm_fasta_viterbi.parallel.database import make_db_scanner
+    from hmm_fasta_viterbi.pipeline import MSVScanner
 
     tokens, lengths = batch
     mesh = make_scan_mesh(db=8, sp=1)
-    scanner = MSVScanner(backend="pallas", interpret=True, l_chunk=64)
-    # pad the batch so it divides db * 128 lanes
-    b = tokens.shape[0]
-    b_pad = 8 * 128
-    tokens_p = np.zeros((b_pad, tokens.shape[1]), dtype=np.int32)
-    tokens_p[:b] = tokens
-    lengths_p = np.zeros(b_pad, dtype=np.int32)
-    lengths_p[:b] = lengths
-    staged = scanner.stage(tokens_p, lengths_p)
-    scores_t, tr_consts, _ = scanner._device_profile(profile)
-    fn = make_db_scanner(mesh, l_chunk=64, interpret=True)
-    got = np.asarray(
-        fn(scores_t, staged.tokens_i8_t, staged.lengths, staged.tr_rows, tr_consts)
-    )[:b]
+    scanner = MSVScanner(msv_impl="xla", l_chunk=64, mesh=mesh)
+    staged = scanner.stage(tokens, lengths)
+    assert staged.tokens_i8.shape[0] % (8 * 128) == 0
+    assert len(staged.tokens_i8.sharding.device_set) == 8
+    got = np.asarray(scanner.scan(profile, staged))
+    table, consts = scanner._cache_get((id(profile), "msv"), profile)
+    fn = make_db_scanner(mesh, "xla")
+    direct = np.asarray(
+        fn(table, staged.tokens_i8, staged.lengths, staged.tr_rows, consts)
+    )[0, : len(lengths)]
     want = msv_oracle_batch(profile, tokens, lengths)
     np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+    np.testing.assert_array_equal(direct, got)
 
 
-def test_seqblock_pallas_wavefront(profile):
-    """Pallas-kernel wavefront: db x sp mesh, ragged lengths crossing
-    block boundaries, scores exact vs the oracle."""
-    from hmm_fasta_viterbi_tpu.parallel.seqblocks import msv_scan_seqblocks_pallas
-
-    rng = np.random.default_rng(21)
-    lengths = np.array([300, 1, 170, 64, 299], dtype=np.int32)
-    tokens = rng.integers(0, 20, size=(len(lengths), 300)).astype(np.int32)
-    mesh = make_scan_mesh(db=2, sp=4)
-    got = msv_scan_seqblocks_pallas(
-        profile, tokens, lengths, mesh, l_chunk=32, interpret=True
+@pytest.mark.parametrize("stage", ["viterbi", "forward"])
+def test_mesh_scan_p7(batch, profile_dir, stage):
+    """The Viterbi / Forward stages shard over the db axis too."""
+    from hmm_fasta_viterbi.models.p7 import P7Profile
+    from hmm_fasta_viterbi.ops.reference import (
+        forward_oracle_batch,
+        viterbi_oracle_batch,
     )
-    want = msv_oracle_batch(profile, tokens, lengths)
-    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    from hmm_fasta_viterbi.pipeline import MSVScanner
 
-
-def test_seqblock_pallas_pure_sp(profile):
-    from hmm_fasta_viterbi_tpu.parallel.seqblocks import msv_scan_seqblocks_pallas
-
-    rng = np.random.default_rng(22)
-    lengths = np.array([256, 100], dtype=np.int32)
-    tokens = rng.integers(0, 20, size=(2, 256)).astype(np.int32)
-    mesh = make_scan_mesh(db=1, sp=8)
-    got = msv_scan_seqblocks_pallas(
-        profile, tokens, lengths, mesh, l_chunk=32, interpret=True
+    tokens, lengths = batch
+    p7 = P7Profile.from_profile(parse_hmm(profile_dir / "100.hmm"))
+    sc = MSVScanner(msv_impl="xla", l_chunk=64, mesh=make_scan_mesh(db=4, sp=1))
+    got = np.asarray(sc.scan_p7(p7, sc.stage(tokens, lengths), stage=stage))
+    oracle = viterbi_oracle_batch if stage == "viterbi" else forward_oracle_batch
+    tol = 1e-4 if stage == "viterbi" else 2e-3
+    rows = np.arange(4)
+    np.testing.assert_allclose(
+        got[rows], oracle(p7, tokens[rows], lengths[rows]), atol=tol, rtol=0
     )
-    want = msv_oracle_batch(profile, tokens, lengths)
-    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
 def test_multihost_two_process_smoke():
@@ -213,21 +201,21 @@ def test_multihost_two_process_smoke():
 
 def test_mesh_scanner_full_cascade_vs_oracle(batch, profile_dir):
     """A mesh-carrying MSVScanner shards EVERY cascade stage over the db
-    axis (VERDICT r1 #2): MSV exact + filter, Viterbi exact + filter,
-    Forward — all vs single-device oracles on the 8-device CPU mesh."""
-    from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
-    from hmm_fasta_viterbi_tpu.ops.reference import (
+    axis: MSV exact + filter, Viterbi exact + filter, Forward — all vs
+    single-device oracles on the 8-device CPU mesh."""
+    from hmm_fasta_viterbi.models.p7 import P7Profile
+    from hmm_fasta_viterbi.ops.reference import (
         forward_oracle_batch,
         viterbi_oracle_batch,
     )
-    from hmm_fasta_viterbi_tpu.pipeline import MSVScanner
+    from hmm_fasta_viterbi.pipeline import MSVScanner
 
     tokens, lengths = batch
     hmm = parse_hmm(profile_dir / "100.hmm")
     msv = MSVProfile.from_profile(hmm)
     p7 = P7Profile.from_profile(hmm)
     mesh = make_scan_mesh(db=8, sp=1)
-    sc = MSVScanner(backend="pallas", interpret=True, l_chunk=64, mesh=mesh)
+    sc = MSVScanner(msv_impl="xla", l_chunk=64, mesh=mesh)
     staged = sc.stage(tokens, lengths)
     assert staged.lengths.shape[0] % (8 * 128) == 0
 
@@ -252,9 +240,9 @@ def test_mesh_scanner_full_cascade_vs_oracle(batch, profile_dir):
 
 
 def test_mesh_scan_many_stacked(batch, profile_dir):
-    """The stacked multi-profile sweep kernel under shard_map matches
+    """The stacked multi-profile sweep under shard_map matches
     per-profile oracle scores."""
-    from hmm_fasta_viterbi_tpu.pipeline import MSVScanner
+    from hmm_fasta_viterbi.pipeline import MSVScanner
 
     tokens, lengths = batch
     profiles = [
@@ -262,7 +250,7 @@ def test_mesh_scan_many_stacked(batch, profile_dir):
         for n in (100, 200)
     ]
     mesh = make_scan_mesh(db=8, sp=1)
-    sc = MSVScanner(backend="pallas", interpret=True, l_chunk=64, mesh=mesh)
+    sc = MSVScanner(msv_impl="xla", l_chunk=64, mesh=mesh)
     staged = sc.stage(tokens, lengths)
     results = sc.scan_many(profiles, staged)
     for p in profiles:
@@ -272,9 +260,9 @@ def test_mesh_scan_many_stacked(batch, profile_dir):
 
 def test_mesh_search_pipeline_matches_single_device(profile_dir):
     """SearchPipeline over a mesh scanner: same hits + scores as the
-    single-device pallas pipeline (consensus sequence must hit)."""
-    from hmm_fasta_viterbi_tpu.io.alphabet import AMINO_ACIDS, encode_sequence
-    from hmm_fasta_viterbi_tpu.pipeline import MSVScanner, SearchPipeline
+    single-device pipeline (consensus sequence must hit)."""
+    from hmm_fasta_viterbi.io.alphabet import AMINO_ACIDS, encode_sequence
+    from hmm_fasta_viterbi.pipeline import MSVScanner, SearchPipeline
 
     hmm = parse_hmm(profile_dir / "100.hmm")
     best = np.argmax(hmm.match_emissions[1:], axis=1)
@@ -287,8 +275,8 @@ def test_mesh_search_pipeline_matches_single_device(profile_dir):
     lengths[1] = len(cons)
 
     mesh = make_scan_mesh(db=8, sp=1)
-    sc_mesh = MSVScanner(backend="pallas", interpret=True, l_chunk=64, mesh=mesh)
-    sc_one = MSVScanner(backend="pallas", interpret=True, l_chunk=64)
+    sc_mesh = MSVScanner(msv_impl="xla", l_chunk=64, mesh=mesh)
+    sc_one = MSVScanner(msv_impl="xla", l_chunk=64)
     res_mesh = SearchPipeline(
         sc_mesh, fast_msv=True, fast_viterbi=True
     ).search(hmm, sc_mesh.stage(tokens, lengths), tokens, lengths)
@@ -305,126 +293,43 @@ def test_mesh_search_pipeline_matches_single_device(profile_dir):
         )
 
 
-@pytest.mark.parametrize("stage", ["viterbi", "forward"])
-def test_p7_seqblock_wavefront(profile_dir, stage):
-    """p7 stages over the sp axis (round 2): residue blocks of each
-    sequence pipeline across chips with the p7 kernels as block
-    scanners; ragged lengths crossing block boundaries, scores vs the
-    oracle (long-sequence support for the FULL cascade)."""
-    from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
-    from hmm_fasta_viterbi_tpu.ops.reference import (
-        forward_oracle_batch,
-        viterbi_oracle_batch,
-    )
-    from hmm_fasta_viterbi_tpu.parallel.seqblocks import (
-        p7_scan_seqblocks_pallas,
-    )
+def test_seqblock_scanner_refuses_p7(profile_dir):
+    """The Viterbi / Forward stages have no sequence-parallel wavefront:
+    the sp scanner refuses them instead of scoring them another way."""
+    from hmm_fasta_viterbi.models.p7 import P7Profile
+    from hmm_fasta_viterbi.parallel.seqblocks import SeqblockScanner
 
     p7 = P7Profile.from_profile(parse_hmm(profile_dir / "100.hmm"))
-    rng = np.random.default_rng(29)
-    lengths = np.array([300, 1, 170, 64, 299], dtype=np.int32)
-    tokens = rng.integers(0, 20, size=(len(lengths), 300)).astype(np.int32)
-    mesh = make_scan_mesh(db=2, sp=4)
-    got = p7_scan_seqblocks_pallas(
-        p7, tokens, lengths, mesh, stage=stage, l_chunk=32, interpret=True
-    )
-    oracle = viterbi_oracle_batch if stage == "viterbi" else forward_oracle_batch
-    want = oracle(p7, tokens, lengths)
-    tol = 1e-4 if stage == "viterbi" else 2e-3
-    np.testing.assert_allclose(got, want, atol=tol, rtol=0)
+    sb = SeqblockScanner(make_scan_mesh(db=2, sp=4))
+    staged = sb.stage(np.zeros((2, 16), np.int32), np.array([16, 3], np.int32))
+    for stage in ("viterbi", "forward"):
+        with pytest.raises(ValueError, match="wavefront"):
+            sb.scan_p7(p7, staged, stage=stage)
 
 
-def test_p7_seqblock_pure_sp(profile_dir):
-    from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
-    from hmm_fasta_viterbi_tpu.ops.reference import viterbi_oracle_batch
-    from hmm_fasta_viterbi_tpu.parallel.seqblocks import (
-        p7_scan_seqblocks_pallas,
-    )
-
-    p7 = P7Profile.from_profile(parse_hmm(profile_dir / "100.hmm"))
-    rng = np.random.default_rng(31)
-    lengths = np.array([256, 100], dtype=np.int32)
-    tokens = rng.integers(0, 20, size=(2, 256)).astype(np.int32)
-    mesh = make_scan_mesh(db=1, sp=8)
-    got = p7_scan_seqblocks_pallas(
-        p7, tokens, lengths, mesh, stage="viterbi", l_chunk=32, interpret=True
-    )
-    want = viterbi_oracle_batch(p7, tokens, lengths)
-    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
-
-
-def test_sp_search_cascade_matches_single_device(profile_dir):
-    """End-to-end long-sequence search (round 3): the full cascade with
-    every stage wavefronted over sp must produce the same scores and hit
-    sets as the single-device pipeline."""
-    from hmm_fasta_viterbi_tpu.parallel.seqblocks import SeqblockScanner
-    from hmm_fasta_viterbi_tpu.pipeline import MSVScanner, SearchPipeline
+def test_sp_msv_matches_single_device(profile_dir):
+    """The sp scanner's MSV stage (wavefront over a db x sp mesh) gives
+    the single-device scanner's scores, sweep included."""
+    from hmm_fasta_viterbi.parallel.seqblocks import SeqblockScanner
+    from hmm_fasta_viterbi.pipeline import MSVScanner
 
     from conftest import consensus_tokens
 
     hmm = parse_hmm(profile_dir / "100.hmm")
     rng = np.random.default_rng(37)
-    # a consensus-match hit among random sequences: the cascade prunes
-    # the randoms at MSV while the hit survives every stage
     hit = consensus_tokens(hmm)
     L = 192
     lengths = np.array([len(hit), 50, 173, 192, 1, 128], dtype=np.int32)
     tokens = rng.integers(0, 20, size=(len(lengths), L)).astype(np.int32)
     tokens[0, : len(hit)] = hit
+    profiles = [
+        MSVProfile.from_profile(parse_hmm(profile_dir / f"{n}.hmm"))
+        for n in (100, 200)
+    ]
 
-    mesh = make_scan_mesh(db=2, sp=4)
-    sb = SeqblockScanner(mesh, l_chunk=32, interpret=True)
-    kw = dict(msv_p=0.02, viterbi_p=1e-3, forward_p=1e-5)
-    sp_pipe = SearchPipeline(sb, **kw)
-    got = sp_pipe.search(hmm, sb.stage(tokens, lengths), tokens, lengths)
-
-    one = MSVScanner(backend="pallas", interpret=True, l_chunk=64)
-    ref_pipe = SearchPipeline(one, **kw)
-    want = ref_pipe.search(
-        hmm, one.stage(tokens, lengths), tokens, lengths
-    )
-
-    np.testing.assert_allclose(
-        got.msv_scores, want.msv_scores, atol=1e-4, rtol=0
-    )
-    # the constructed hit must actually survive the whole cascade (the
-    # test would otherwise vacuously pass on empty survivor sets)
-    assert want.passed_forward[0] and got.passed_forward[0]
-    np.testing.assert_array_equal(got.passed_msv, want.passed_msv)
-    np.testing.assert_array_equal(got.passed_viterbi, want.passed_viterbi)
-    np.testing.assert_array_equal(got.passed_forward, want.passed_forward)
-    m = np.isfinite(want.viterbi_scores)
-    np.testing.assert_allclose(
-        got.viterbi_scores[m], want.viterbi_scores[m], atol=1e-4, rtol=0
-    )
-    m = np.isfinite(want.forward_scores)
-    np.testing.assert_allclose(
-        got.forward_scores[m], want.forward_scores[m], atol=2e-3, rtol=0
-    )
-
-
-def test_db_mesh_posterior_decode(profile_dir):
-    """Round 3: the --domains posterior decode rides the db mesh; the
-    sharded two-pass Pallas decode must match the single-device xla
-    decode (bf16-stream tolerance)."""
-    from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
-    from hmm_fasta_viterbi_tpu.ops.p7_scan import posterior_coverage_batch_xla
-    from hmm_fasta_viterbi_tpu.ops.pallas_posterior import (
-        posterior_coverage_batch_pallas,
-    )
-
-    p7 = P7Profile.from_profile(parse_hmm(profile_dir / "100.hmm"))
-    rng = np.random.default_rng(41)
-    B, L = 5, 96
-    tokens = rng.integers(0, 20, size=(B, L)).astype(np.int32)
-    lengths = np.array([L, 40, 1, 96, 64], dtype=np.int32)
-    mesh = make_scan_mesh(db=8, sp=1)
-    cov, tot = posterior_coverage_batch_pallas(
-        p7, tokens, lengths, interpret=True, mesh=mesh
-    )
-    cov_x, tot_x = posterior_coverage_batch_xla(p7, tokens, lengths)
-    lmin = min(cov.shape[1], cov_x.shape[1])
-    np.testing.assert_allclose(
-        cov[:, :lmin], cov_x[:, :lmin], atol=4e-3, rtol=0
-    )
-    np.testing.assert_allclose(tot, tot_x, atol=2e-3, rtol=0)
+    sb = SeqblockScanner(make_scan_mesh(db=2, sp=4))
+    one = MSVScanner(msv_impl="xla")
+    got = sb.scan_many(profiles, sb.stage(tokens, lengths))
+    want = one.scan_many(profiles, one.stage(tokens, lengths))
+    for p in profiles:
+        np.testing.assert_allclose(got[p.name], want[p.name], atol=1e-4, rtol=0)

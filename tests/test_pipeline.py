@@ -3,17 +3,25 @@
 import numpy as np
 import pytest
 
-from hmm_fasta_viterbi_tpu import MSVProfile, msv_oracle_batch, parse_fasta, parse_hmm
-from hmm_fasta_viterbi_tpu.pipeline import MSVScanner
+from hmm_fasta_viterbi import MSVProfile, msv_oracle_batch, parse_fasta, parse_hmm
+from hmm_fasta_viterbi.ops import msv_cuda
+from hmm_fasta_viterbi.pipeline import MSVScanner
 
 TOL = 1e-4
 
 
-@pytest.fixture(scope="module", params=["xla", "pallas"])
+@pytest.fixture(scope="module", params=["xla", "cuda"])
 def scanner(request):
-    if request.param == "pallas":
-        return MSVScanner(backend="pallas", interpret=True, l_chunk=64)
-    return MSVScanner(backend="xla")
+    """``cuda``: the scanner's CUDA branch — table packing, stacking by
+    width, padding — with the kernel's plain reference standing in for
+    the kernel, which needs a card."""
+    sc = MSVScanner(msv_impl="xla", l_chunk=64)
+    if request.param == "cuda":
+        mp = pytest.MonkeyPatch()
+        mp.setattr(msv_cuda, "msv_packed", msv_cuda.msv_packed_reference)
+        request.addfinalizer(mp.undo)
+        sc.msv_impl = "cuda"
+    return sc
 
 
 def test_stage_and_scan(scanner, profile_dir, fasta_dir):
@@ -54,14 +62,14 @@ def test_profile_cache(scanner, profile_dir, fasta_dir):
     np.testing.assert_array_equal(a, b)
 
 
-def test_m_bucketing_parity(profile_dir, fasta_dir):
-    """Bucketed M padding must not change scores."""
+def test_length_bucket_parity(profile_dir, fasta_dir):
+    """The staged length bucket (l_chunk) must not change scores."""
     db = parse_fasta(fasta_dir / "fasta_like_example.fsa")
     tokens, lengths = db.encode()
     profile = MSVProfile.from_profile(parse_hmm(profile_dir / "100.hmm"))
     want = msv_oracle_batch(profile, tokens, lengths)
-    for m_bucket in (8, 256, 1024):
-        sc = MSVScanner(backend="pallas", interpret=True, l_chunk=64, m_bucket=m_bucket)
+    for l_chunk in (16, 64, 1024):
+        sc = MSVScanner(msv_impl="xla", l_chunk=l_chunk)
         got = np.asarray(sc.scan(profile, sc.stage(tokens, lengths)))
         np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
 
@@ -99,8 +107,8 @@ def test_bucketed_single_bucket_degenerate(scanner, profile_dir):
 
 def test_scan_p7_staged_matches_oracle(scanner, profile_dir):
     """Staged Viterbi/Forward scans (device-resident tokens)."""
-    from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
-    from hmm_fasta_viterbi_tpu.ops.reference import (
+    from hmm_fasta_viterbi.models.p7 import P7Profile
+    from hmm_fasta_viterbi.ops.reference import (
         forward_oracle_batch,
         viterbi_oracle_batch,
     )
@@ -120,34 +128,33 @@ def test_scan_p7_staged_matches_oracle(scanner, profile_dir):
     )
 
 
-def test_filter_scan_upper_bound(profile_dir):
-    """Filter scores must dominate exact scores (no false negatives)
-    while staying within ~1 nat on realistic lengths."""
-    sc = MSVScanner(backend="pallas", interpret=True, l_chunk=64)
+def test_filter_scan_is_exact(scanner, profile_dir):
+    """The MSV prefilter is the exact scan (an f32 lookup costs the GPU
+    what a rounded one does): trivially an upper bound, no rescore."""
     rng = np.random.default_rng(14)
     lengths = np.array([128, 40, 1, 96], dtype=np.int32)
     tokens = rng.integers(0, 20, size=(len(lengths), 128)).astype(np.int32)
-    staged = sc.stage(tokens, lengths)
+    staged = scanner.stage(tokens, lengths)
     for stem in ("100", "300"):
         profile = MSVProfile.from_profile(parse_hmm(profile_dir / f"{stem}.hmm"))
-        exact = np.asarray(sc.scan(profile, staged))
-        approx = np.asarray(sc.scan_filter(profile, staged))
-        assert np.all(approx >= exact - 1e-6), (approx, exact)
-        assert np.all(approx - exact < 1.0)
+        exact = np.asarray(scanner.scan(profile, staged))
+        np.testing.assert_array_equal(
+            np.asarray(scanner.scan_filter(profile, staged)), exact
+        )
 
 
 def test_fast_msv_cascade_same_hits(profile_dir, fasta_dir):
     """fast_msv cascade must produce identical pass sets and identical
     exact scores for everything past the filter."""
-    from hmm_fasta_viterbi_tpu import parse_hmm as ph
-    from hmm_fasta_viterbi_tpu.io.hmmio import parse_hmm as _
-    from hmm_fasta_viterbi_tpu.pipeline import SearchPipeline
+    from hmm_fasta_viterbi import parse_hmm as ph
+    from hmm_fasta_viterbi.io.hmmio import parse_hmm as _
+    from hmm_fasta_viterbi.pipeline import SearchPipeline
 
     hmm = ph(profile_dir / "100.hmm")
     rng = np.random.default_rng(15)
     lengths = np.array([80, 33, 128, 5], dtype=np.int32)
     tokens = rng.integers(0, 20, size=(len(lengths), 128)).astype(np.int32)
-    sc = MSVScanner(backend="pallas", interpret=True, l_chunk=64)
+    sc = MSVScanner(msv_impl="xla", l_chunk=64)
     staged = sc.stage(tokens, lengths)
     # msv_p=1.0 forces every sequence through the exact-rescore path —
     # random sequences rarely pass real thresholds, which would leave
@@ -167,8 +174,6 @@ def test_fast_msv_cascade_same_hits(profile_dir, fasta_dir):
 
 def test_scan_many_filter_mode_upper_bound(scanner, profile_dir):
     """Stacked filter sweep dominates the exact sweep per profile."""
-    if scanner.backend != "pallas":
-        pytest.skip("filter mode is pallas-only")
     rng = np.random.default_rng(16)
     lengths = np.array([96, 40, 1, 64], dtype=np.int32)
     tokens = rng.integers(0, 20, size=(len(lengths), 96)).astype(np.int32)
@@ -192,7 +197,7 @@ def test_profile_cache_id_reuse_regression(profile_dir):
     objects through one scanner and demand oracle parity every time."""
     import gc
 
-    sc = MSVScanner(backend="xla")
+    sc = MSVScanner(msv_impl="xla")
     rng = np.random.default_rng(17)
     tokens = rng.integers(0, 20, size=(3, 64)).astype(np.int32)
     lengths = np.full(3, 64, dtype=np.int32)
@@ -211,7 +216,7 @@ def test_profile_cache_is_bounded(profile_dir):
     """Pfam-scale sweeps iterate thousands of profiles through one
     scanner/pipeline; the pinned id-keyed caches must evict LRU instead
     of growing a device pack per profile forever (ADVICE r3)."""
-    sc = MSVScanner(backend="xla")
+    sc = MSVScanner(msv_impl="xla")
     sentinels = []
     for i in range(sc._CACHE_MAX + 40):
         obj = object()
@@ -224,7 +229,7 @@ def test_profile_cache_is_bounded(profile_dir):
     )
     assert sc._cache_get(("k", 0), sentinels[0]) is None
 
-    from hmm_fasta_viterbi_tpu.pipeline import SearchPipeline
+    from hmm_fasta_viterbi.pipeline import SearchPipeline
 
     pipe = SearchPipeline(sc)
     hmms = [parse_hmm(profile_dir / "100.hmm")
@@ -234,10 +239,10 @@ def test_profile_cache_is_bounded(profile_dir):
     assert len(pipe._derived_cache) == pipe._DERIVED_MAX
 
 
-def test_scan_many_bucketed_matches_per_profile(profile_dir):
+def test_scan_many_bucketed_matches_per_profile(scanner, profile_dir):
     """Stacked sweep over a length-bucketed ragged corpus must scatter
     scores identical to per-profile scan_bucketed (VERDICT r1 #6)."""
-    from hmm_fasta_viterbi_tpu import MSVProfile, parse_hmm
+    from hmm_fasta_viterbi import MSVProfile, parse_hmm
 
     rng = np.random.default_rng(31)
     lengths = np.array([150, 7, 64, 150, 40, 99, 12, 150], dtype=np.int32)
@@ -246,7 +251,7 @@ def test_scan_many_bucketed_matches_per_profile(profile_dir):
         MSVProfile.from_profile(parse_hmm(profile_dir / f"{n}.hmm"))
         for n in (100, 200)
     ]
-    sc = MSVScanner(backend="pallas", interpret=True, l_chunk=64)
+    sc = scanner
     bucketed = sc.stage_bucketed(tokens, lengths)
     assert len(bucketed.buckets) > 1  # the ragged corpus really buckets
     stacked = sc.scan_many_bucketed(profiles, bucketed)
@@ -255,26 +260,26 @@ def test_scan_many_bucketed_matches_per_profile(profile_dir):
         np.testing.assert_allclose(stacked[p.name], want, atol=0, rtol=0)
 
 
-def test_stage_device_transpose_matches_host(profile_dir):
-    """Round 5: stage()'s on-device transpose+blank must produce the
-    exact token block the host-side blank_ragged_tail path built (the
-    mesh path still uses the host transpose, so both live)."""
-    import jax.numpy as jnp
-
-    from hmm_fasta_viterbi_tpu.ops import pallas_msv
-    from hmm_fasta_viterbi_tpu.pipeline import MSVScanner, _round_up
+def test_stage_layout(profile_dir):
+    """stage() pads to [B bucket, L bucket] int8 rows, zero past each
+    length; stage_device() of the same block stages identically."""
+    from hmm_fasta_viterbi.pipeline import B_BUCKET, _round_up
 
     rng = np.random.default_rng(3)
     tokens = rng.integers(0, 20, size=(5, 77)).astype(np.int32)
     lengths = np.array([77, 0, 31, 1, 77], dtype=np.int32)
-    sc = MSVScanner(backend="pallas", interpret=True)
+    sc = MSVScanner(msv_impl="xla")
     staged = sc.stage(tokens, lengths)
 
-    b_pad = _round_up(5, 128)
-    l_pad = _round_up(77, sc.l_chunk)
-    tok_t = np.full((l_pad, b_pad), pallas_msv.PAD_TOKEN, dtype=np.int8)
-    tok_t[:77, :5] = tokens.T
-    lengths_p = np.zeros(b_pad, dtype=np.int32)
-    lengths_p[:5] = lengths
-    pallas_msv.blank_ragged_tail(tok_t, lengths_p)
-    np.testing.assert_array_equal(np.asarray(staged.tokens_i8_t), tok_t)
+    b_pad, l_pad = _round_up(5, B_BUCKET), _round_up(77, sc.l_chunk)
+    want = np.zeros((b_pad, l_pad), dtype=np.int8)
+    want[:5, :77] = tokens
+    np.testing.assert_array_equal(np.asarray(staged.tokens_i8), want)
+    assert staged.num_sequences == 5
+    np.testing.assert_array_equal(np.asarray(staged.lengths)[:5], lengths)
+
+    again = sc.stage_device(staged.tokens_i8, np.asarray(staged.lengths), 5)
+    profile = MSVProfile.from_profile(parse_hmm(profile_dir / "100.hmm"))
+    np.testing.assert_array_equal(
+        np.asarray(sc.scan(profile, again)), np.asarray(sc.scan(profile, staged))
+    )

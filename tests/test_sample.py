@@ -11,12 +11,12 @@ import json
 import numpy as np
 import pytest
 
-from hmm_fasta_viterbi_tpu.cli import main
-from hmm_fasta_viterbi_tpu.io.hmmio import parse_hmm
-from hmm_fasta_viterbi_tpu.models import stats
-from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
-from hmm_fasta_viterbi_tpu.models.sample import sample_sequences
-from hmm_fasta_viterbi_tpu.pipeline import select_p7_fns
+from hmm_fasta_viterbi.cli import main
+from hmm_fasta_viterbi.io.hmmio import parse_hmm
+from hmm_fasta_viterbi.models import stats
+from hmm_fasta_viterbi.models.p7 import P7Profile
+from hmm_fasta_viterbi.models.sample import sample_sequences
+from hmm_fasta_viterbi.ops.p7_scan import forward_xla
 
 
 def test_samples_deterministic_and_shaped(profile_dir):
@@ -41,8 +41,7 @@ def test_samples_score_significant(profile_dir):
         batch[i, : len(t)] = t
     # score with the reference-quirk parse (the scan engine's numerics)
     p7 = P7Profile.from_profile(parse_hmm(profile_dir / "100.hmm"))
-    _, forward_fn = select_p7_fns("xla", False)
-    pv = stats.forward_pvalue(np.asarray(forward_fn(p7, batch, lens)), hmm)
+    pv = stats.forward_pvalue(np.asarray(forward_xla(p7, batch, lens)), hmm)
     assert np.median(pv) < 1e-6, pv
     # contrast: uniform-random sequences of the same lengths are not
     rng = np.random.default_rng(0)
@@ -50,7 +49,7 @@ def test_samples_score_significant(profile_dir):
     for i, l in enumerate(lens):
         rnd[i, :l] = rng.integers(0, 20, int(l))
     pv_rnd = stats.forward_pvalue(
-        np.asarray(forward_fn(p7, rnd, lens)), hmm
+        np.asarray(forward_xla(p7, rnd, lens)), hmm
     )
     assert np.median(pv_rnd) > 1e-3, pv_rnd
 
@@ -70,7 +69,7 @@ def test_cli_emit(tmp_path, profile_dir, capsys):
                  "--consensus", "--out", str(fasta)]) == 0
     capsys.readouterr()
     assert main(["scan", "--hmm", str(profile_dir / "100.hmm"),
-                 "--fasta", str(fasta), "--backend", "xla",
+                 "--fasta", str(fasta), "--msv-impl", "xla",
                  "--stage", "search", "--format", "json"]) == 0
     rows = json.loads(capsys.readouterr().out)
     assert rows and rows[0]["hit"]

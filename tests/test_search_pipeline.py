@@ -7,11 +7,11 @@ all three stages; random sequences must be rejected early.
 import numpy as np
 import pytest
 
-from hmm_fasta_viterbi_tpu import parse_hmm
-from hmm_fasta_viterbi_tpu.cli import main
-from hmm_fasta_viterbi_tpu.io.alphabet import AMINO_ACIDS
-from hmm_fasta_viterbi_tpu.io.fastaio import FastaRecord, write_fasta
-from hmm_fasta_viterbi_tpu.pipeline import MSVScanner, SearchPipeline
+from hmm_fasta_viterbi import parse_hmm
+from hmm_fasta_viterbi.cli import main
+from hmm_fasta_viterbi.io.alphabet import AMINO_ACIDS
+from hmm_fasta_viterbi.io.fastaio import FastaRecord, write_fasta
+from hmm_fasta_viterbi.pipeline import MSVScanner, SearchPipeline
 
 
 def consensus_sequence(hmm) -> str:
@@ -28,7 +28,7 @@ def hmm100(profile_dir):
 def mixed_batch(hmm100):
     rng = np.random.default_rng(21)
     cons = consensus_sequence(hmm100)
-    from hmm_fasta_viterbi_tpu.io.alphabet import encode_sequence
+    from hmm_fasta_viterbi.io.alphabet import encode_sequence
 
     cons_tokens = encode_sequence(cons)
     seq_len = max(len(cons), 120)
@@ -41,7 +41,7 @@ def mixed_batch(hmm100):
 
 def test_cascade(hmm100, mixed_batch):
     tokens, lengths = mixed_batch
-    scanner = MSVScanner(backend="xla")
+    scanner = MSVScanner(msv_impl="xla")
     staged = scanner.stage(tokens, lengths)
     result = SearchPipeline(scanner).search(hmm100, staged, tokens, lengths)
 
@@ -67,7 +67,7 @@ def test_cli_search_stage(tmp_path, profile_dir, hmm100, capsys):
 
     rc = main(
         ["scan", "--hmm", str(profile_dir / "100.hmm"), "--fasta", str(fasta),
-         "--stage", "search", "--backend", "xla"]
+         "--stage", "search", "--msv-impl", "xla"]
     )
     assert rc == 0
     out = capsys.readouterr().out
@@ -94,11 +94,11 @@ def test_cli_p7_stages(tmp_path, profile_dir, hmm100, stage, capsys):
 
 
 def test_fast_cascade_identical_hits(hmm100, mixed_batch):
-    """fast_msv + fast_viterbi (upper-bound prefilters + exact rescore)
-    must produce the same hit set and identical exact scores on hits as
-    the plain cascade (VERDICT r1 #1 'done' criterion)."""
+    """fast_msv + fast_viterbi (the prefilter entry points, both exact)
+    must produce the same hit set and identical scores on hits as the
+    plain cascade."""
     tokens, lengths = mixed_batch
-    scanner = MSVScanner(backend="pallas", interpret=True, l_chunk=64)
+    scanner = MSVScanner(msv_impl="xla", l_chunk=64)
     staged = scanner.stage(tokens, lengths)
     plain = SearchPipeline(scanner).search(hmm100, staged, tokens, lengths)
     fast = SearchPipeline(
@@ -120,192 +120,6 @@ def test_fast_cascade_identical_hits(hmm100, mixed_batch):
         )
 
 
-def test_fused_cascade_identical_hits(hmm100, mixed_batch):
-    """The one-dispatch fused cascade must reproduce the plain
-    pipeline's hit set and stage decisions exactly (device pruning uses
-    conservative thresholds; final decisions are host f64)."""
-    tokens, lengths = mixed_batch
-    scanner = MSVScanner(backend="pallas", interpret=True, l_chunk=64)
-    staged = scanner.stage(tokens, lengths)
-    plain = SearchPipeline(scanner).search(hmm100, staged, tokens, lengths)
-    fused = SearchPipeline(scanner, fused=True).search(
-        hmm100, staged, tokens, lengths
-    )
-    assert fused.hits.tolist() == plain.hits.tolist() == [2]
-    np.testing.assert_array_equal(fused.passed_msv, plain.passed_msv)
-    np.testing.assert_array_equal(fused.passed_viterbi, plain.passed_viterbi)
-    np.testing.assert_array_equal(fused.passed_forward, plain.passed_forward)
-    for h in fused.hits:
-        assert fused.msv_scores[h] == pytest.approx(plain.msv_scores[h], abs=1e-4)
-        assert fused.viterbi_scores[h] == pytest.approx(
-            plain.viterbi_scores[h], abs=1e-4
-        )
-        assert fused.forward_scores[h] == pytest.approx(
-            plain.forward_scores[h], abs=2e-3
-        )
-
-
-def test_fused_cascade_overflow_falls_back(hmm100):
-    """More survivors than the device capacity: the fused path must
-    detect the overflow and fall back to the staged pipeline (never
-    silently truncate). 200 consensus copies all pass MSV; cap1 for a
-    256-lane batch is 128."""
-    cons = consensus_sequence(hmm100)
-    from hmm_fasta_viterbi_tpu.io.alphabet import encode_sequence
-
-    ct = encode_sequence(cons)
-    tokens = np.tile(ct, (200, 1)).astype(np.int32)
-    lengths = np.full(200, len(cons), dtype=np.int32)
-    scanner = MSVScanner(backend="pallas", interpret=True, l_chunk=64)
-    staged = scanner.stage(tokens, lengths)
-    plain = SearchPipeline(scanner).search(hmm100, staged, tokens, lengths)
-    fused = SearchPipeline(scanner, fused=True).search(
-        hmm100, staged, tokens, lengths
-    )
-    assert plain.hits.size == 200
-    np.testing.assert_array_equal(fused.passed_forward, plain.passed_forward)
-    np.testing.assert_array_equal(fused.passed_msv, plain.passed_msv)
-
-
-def test_fused_cascade_non_identity_compaction(hmm100):
-    """Stage-2 compaction holes: lane A passes the device MSV-filter
-    threshold but fails the exact rescore (slot ranks shift), and lane
-    B passes MSV but FAILS the Viterbi filter — B's recorded
-    viterbi-filter score is exactly what the vfilt[cols2] mis-indexing
-    bug corrupted (the exact-vit overlay masks the bug for lanes that
-    pass). Junk lanes saturate the Gumbel at pv=1.0, so both special
-    lanes are weakened consensus variants in the discriminating range."""
-    from hmm_fasta_viterbi_tpu.models import stats
-    from hmm_fasta_viterbi_tpu.models.msv import MSVProfile as _MSV
-    from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
-    from hmm_fasta_viterbi_tpu.io.alphabet import encode_sequence
-
-    cons = consensus_sequence(hmm100)
-    ct = encode_sequence(cons)
-    weak = ct.copy()
-    weak[::5] = (weak[::5] + 7) % 20   # hole lane: every 5th mutated
-    medium = ct.copy()
-    medium[::11] = (medium[::11] + 7) % 20  # MSV-pass, Viterbi-fail lane
-    rng = np.random.default_rng(3)
-    seq_len = len(cons)
-    tokens = rng.integers(0, 20, size=(5, seq_len)).astype(np.int32)
-    tokens[1] = weak
-    tokens[2] = medium
-    tokens[3] = ct
-    lengths = np.full(5, seq_len, dtype=np.int32)
-
-    scanner = MSVScanner(backend="pallas", interpret=True, l_chunk=64)
-    staged = scanner.stage(tokens, lengths)
-    prof = _MSV.from_profile(hmm100)
-    filt = np.asarray(scanner.scan_filter(prof, staged))
-    exact = np.asarray(scanner.scan(prof, staged))
-    assert filt[1] > exact[1] and exact[2] > filt[1] and exact[3] > filt[1]
-    thr = (float(exact[1]) + float(filt[1])) / 2
-    p_mid = float(stats.msv_pvalue(np.array([thr]), hmm100)[0])
-    # viterbi threshold between medium's and consensus's filter scores
-    p7 = P7Profile.from_profile(hmm100)
-    vf = np.asarray(scanner.scan_p7_filter(p7, staged))
-    vit_ex = np.asarray(scanner.scan_p7(p7, staged, stage="viterbi"))
-    assert vf[3] > vf[2]
-    vthr = (float(max(vf[2], vit_ex[2])) + float(min(vf[3], vit_ex[3]))) / 2
-    p_vit = float(stats.viterbi_pvalue(np.array([vthr]), hmm100)[0])
-    assert 0.0 < p_mid < 1.0 and 0.0 < p_vit < 1.0
-
-    kw = dict(msv_p=p_mid, viterbi_p=p_vit)
-    plain = SearchPipeline(scanner, **kw).search(hmm100, staged, tokens, lengths)
-    fused = SearchPipeline(scanner, fused=True, **kw).search(
-        hmm100, staged, tokens, lengths
-    )
-    assert not plain.passed_msv[1]      # the stage-2 hole exists
-    assert plain.passed_msv[2] and not plain.passed_viterbi[2]
-    assert plain.passed_msv[3] and plain.passed_viterbi[3]
-    np.testing.assert_array_equal(fused.passed_msv, plain.passed_msv)
-    np.testing.assert_array_equal(fused.passed_viterbi, plain.passed_viterbi)
-    np.testing.assert_array_equal(fused.passed_forward, plain.passed_forward)
-    # lane 2 is Viterbi-rejected: fused records its OWN viterbi-FILTER
-    # score (like the fast path; plain records the exact score — the
-    # documented margin-lane semantic difference). The vfilt[cols2] bug
-    # gave lane 2 a DIFFERENT lane's score here.
-    assert fused.viterbi_scores[2] == pytest.approx(float(vf[2]), abs=1e-4)
-    for h in np.flatnonzero(plain.passed_viterbi):
-        assert fused.viterbi_scores[h] == pytest.approx(
-            plain.viterbi_scores[h], abs=1e-4
-        )
-
-
-def test_fused_overflow_really_overflowed(hmm100, caplog):
-    """Companion assert for the fallback test: the overflow branch must
-    actually engage (guards against cap resizing silently making the
-    test vacuous)."""
-    import logging
-
-    cons = consensus_sequence(hmm100)
-    from hmm_fasta_viterbi_tpu.io.alphabet import encode_sequence
-
-    ct = encode_sequence(cons)
-    tokens = np.tile(ct, (200, 1)).astype(np.int32)
-    lengths = np.full(200, len(cons), dtype=np.int32)
-    scanner = MSVScanner(backend="pallas", interpret=True, l_chunk=64)
-    staged = scanner.stage(tokens, lengths)
-    with caplog.at_level(logging.INFO, logger="hmm_fasta_viterbi_tpu.pipeline"):
-        SearchPipeline(scanner, fused=True).search(
-            hmm100, staged, tokens, lengths
-        )
-    assert "capacity overflow" in caplog.text
-
-
-def test_fused_forward_threshold_boundary_contract(hmm100, mixed_batch):
-    """Pin the fused-vs-staged Forward boundary semantics (round 3).
-
-    The fused cascade runs Forward at the full-database L_pad while the
-    staged path restages survivors at their subset's max length
-    (pipeline._fused_cascade docstring), so the two Forward scores agree
-    only within the prob-space kernel's rounding (~5e-4 nats; 2e-3 tol).
-    Contract pinned here with a constructed threshold-straddler
-    (forward_p set exactly AT the survivor's staged p-value):
-
-    (a) common survivors' Forward scores differ < 2e-3 nats;
-    (b) each path's hit decision is self-consistent with its OWN score
-        vs the shared threshold;
-    (c) when the threshold sits outside the divergence band (2x / 0.5x
-        the straddling p-value), both paths decide identically — only a
-        straddler may flip.
-    """
-    tokens, lengths = mixed_batch
-    scanner = MSVScanner(backend="pallas", interpret=True, l_chunk=64)
-    staged = scanner.stage(tokens, lengths)
-    kw = dict(msv_p=0.02, viterbi_p=1e-3)
-
-    base = SearchPipeline(scanner, forward_p=1.0, **kw).search(
-        hmm100, staged, tokens, lengths
-    )
-    assert base.passed_forward[2]
-    pv = float(base.forward_pvalues[2])
-    assert 0 < pv < 1
-
-    for forward_p, may_flip in ((pv, True), (pv * 2, False), (pv * 0.5, False)):
-        staged_r = SearchPipeline(scanner, forward_p=forward_p, **kw).search(
-            hmm100, staged, tokens, lengths
-        )
-        fused_r = SearchPipeline(
-            scanner, forward_p=forward_p, fused=True, **kw
-        ).search(hmm100, staged, tokens, lengths)
-        # (a) score agreement on the common survivor
-        assert fused_r.forward_scores[2] == pytest.approx(
-            staged_r.forward_scores[2], abs=2e-3
-        )
-        # (b) self-consistency of each path's decision
-        for r in (staged_r, fused_r):
-            assert bool(r.passed_forward[2]) == bool(
-                r.forward_pvalues[2] <= forward_p
-            )
-        # (c) outside the band the decisions must agree
-        if not may_flip:
-            np.testing.assert_array_equal(
-                fused_r.passed_forward, staged_r.passed_forward
-            )
-
-
 def test_search_caches_bounded_across_batches(hmm100, mixed_batch):
     """Streamed scans call pipeline.search once per FASTA batch with the
     SAME hmm object; the derived MSV/P7 profiles must be memoized so the
@@ -314,7 +128,7 @@ def test_search_caches_bounded_across_batches(hmm100, mixed_batch):
     arrays per batch, an unbounded leak that also re-uploaded the
     profile every batch)."""
     tokens, lengths = mixed_batch
-    pipeline = SearchPipeline(MSVScanner(backend="xla"))
+    pipeline = SearchPipeline(MSVScanner(msv_impl="xla"))
     sizes = []
     for _ in range(4):
         staged = pipeline.scanner.stage(tokens, lengths)
@@ -345,7 +159,7 @@ def test_search_bucketed_matches_staged(hmm100, tmp_path, capsys):
     from conftest import PROFILE_DIR
 
     base = ["scan", "--hmm", str(PROFILE_DIR / "100.hmm"),
-            "--fasta", str(fasta), "--backend", "xla",
+            "--fasta", str(fasta), "--msv-impl", "xla",
             "--stage", "search", "--format", "json"]
     assert main(base) == 0
     plain = {r["target"]: r for r in json.loads(capsys.readouterr().out)}
@@ -364,11 +178,10 @@ def test_search_bucketed_matches_staged(hmm100, tmp_path, capsys):
 
 
 def test_search_bucketed_fast_prefilter(hmm100, mixed_batch):
-    """search_bucketed + fast_msv on the pallas backend: the bf16
-    prefilter runs per bucket, exact rescore of candidates — hit set
-    identical to the plain staged search."""
+    """search_bucketed + fast_msv: the prefilter runs per bucket — hit
+    set identical to the plain staged search."""
     tokens, lengths = mixed_batch
-    scanner = MSVScanner(backend="pallas", interpret=True)
+    scanner = MSVScanner(msv_impl="xla")
     plain = SearchPipeline(scanner).search(
         hmm100, scanner.stage(tokens, lengths), tokens, lengths
     )
@@ -377,7 +190,7 @@ def test_search_bucketed_fast_prefilter(hmm100, mixed_batch):
     got = fast.search_bucketed(hmm100, bucketed, tokens, lengths)
     np.testing.assert_array_equal(got.passed_forward, plain.passed_forward)
     np.testing.assert_array_equal(got.passed_msv, plain.passed_msv)
-    # exact rescore: survivors' MSV scores match the exact kernel
+    # survivors' MSV scores match the exact scan
     surv = np.flatnonzero(got.passed_msv)
     np.testing.assert_allclose(
         got.msv_scores[surv], plain.msv_scores[surv], atol=1e-4

@@ -9,12 +9,12 @@ f32 Viterbi oracle (ops.reference.viterbi_oracle) within float noise.
 import numpy as np
 import pytest
 
-from hmm_fasta_viterbi_tpu import parse_hmm
-from hmm_fasta_viterbi_tpu.io.alphabet import AA_TO_INDEX
-from hmm_fasta_viterbi_tpu.models.msv import length_transitions
-from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
-from hmm_fasta_viterbi_tpu.ops.reference import viterbi_oracle
-from hmm_fasta_viterbi_tpu.ops.traceback import (
+from hmm_fasta_viterbi import parse_hmm
+from hmm_fasta_viterbi.io.alphabet import AA_TO_INDEX
+from hmm_fasta_viterbi.models.msv import length_transitions
+from hmm_fasta_viterbi.models.p7 import P7Profile
+from hmm_fasta_viterbi.ops.reference import viterbi_oracle
+from hmm_fasta_viterbi.ops.traceback import (
     consensus_string,
     domain_alignments,
     format_alignment,
@@ -142,7 +142,7 @@ def test_stockholm_msa(p7_100):
     """Stockholm MSA over domains: one row per domain in model column
     space; rows equal-width; residue content reconstructs each domain's
     sequence slice; insert runs become lowercase columns RF-marked '.'."""
-    from hmm_fasta_viterbi_tpu.ops.traceback import stockholm_msa
+    from hmm_fasta_viterbi.ops.traceback import stockholm_msa
 
     rng = np.random.default_rng(5)
     cons = consensus_string(p7_100)
@@ -174,7 +174,7 @@ def test_stockholm_msa(p7_100):
     for (name, dom), tok in zip(entries, (tok_a, tok_b)):
         row = seqs[f"{name}/{dom.seq_from}-{dom.seq_to}"]
         got = [c.upper() for c in row if c.isalpha()]
-        from hmm_fasta_viterbi_tpu.io.alphabet import AMINO_ACIDS
+        from hmm_fasta_viterbi.io.alphabet import AMINO_ACIDS
 
         want = [AMINO_ACIDS[t] for t in tok[dom.seq_from - 1 : dom.seq_to]]
         assert got == want
@@ -185,7 +185,7 @@ def test_stockholm_msa(p7_100):
 
 
 def test_no_alignment_on_empty():
-    from hmm_fasta_viterbi_tpu import parse_hmm_text
+    from hmm_fasta_viterbi import parse_hmm_text
 
     from test_hmm_parsing import MINI_HMM
 
@@ -198,7 +198,7 @@ def test_hit_alignments_envelope_fallback(p7_100, monkeypatch):
     """Past the DP budget, hit_alignments aligns each posterior envelope
     subsequence and shifts coordinates back; with no envelopes it
     re-raises (round-3 review: no swap-death on genome-scale input)."""
-    import hmm_fasta_viterbi_tpu.ops.traceback as tb
+    import hmm_fasta_viterbi.ops.traceback as tb
 
     cons = consensus_string(p7_100)
     rep = [AA_TO_INDEX[c] for c in cons]

@@ -16,8 +16,8 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from hmm_fasta_viterbi_tpu.io.alphabet import AMINO_ACIDS  # noqa: E402
-from hmm_fasta_viterbi_tpu.io.fastaio import FastaRecord, write_fasta  # noqa: E402
+from hmm_fasta_viterbi.io.alphabet import AMINO_ACIDS  # noqa: E402
+from hmm_fasta_viterbi.io.fastaio import FastaRecord, write_fasta  # noqa: E402
 
 
 def generate_records(count: int, length: int, seed: int | None = None) -> list[FastaRecord]:

@@ -1,6 +1,6 @@
 """Multi-host smoke: 2 processes x 4 virtual CPU devices, one SPMD scan.
 
-Validates the multi-host story end to end without TPU pods: each process
+Validates the multi-host story end to end on one machine: each process
 initializes jax.distributed, builds the global (db, sp=1) mesh over all
 8 devices, places its process-local batch shard with
 ``jax.make_array_from_process_local_data``, runs the SAME jitted scan
@@ -44,10 +44,10 @@ def main() -> int:
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from hmm_fasta_viterbi_tpu import MSVProfile, msv_oracle_batch, parse_hmm
-    from hmm_fasta_viterbi_tpu.ops.xla_scan import msv_scan
-    from hmm_fasta_viterbi_tpu.models.msv import length_transitions
-    from hmm_fasta_viterbi_tpu.parallel.mesh import make_scan_mesh, DB_AXIS
+    from hmm_fasta_viterbi import MSVProfile, msv_oracle_batch, parse_hmm
+    from hmm_fasta_viterbi.ops.xla_scan import msv_scan
+    from hmm_fasta_viterbi.models.msv import length_transitions
+    from hmm_fasta_viterbi.parallel.mesh import make_scan_mesh, DB_AXIS
 
     assert jax.process_count() == num_processes
     assert len(jax.devices()) == 4 * num_processes, jax.devices()
